@@ -1,9 +1,9 @@
 """End-to-end `finch dist --pairwise` benchmark through the user
-entrypoint (VERDICT r2 #6): DB load -> Gram MXU engine -> JSON encode ->
+entrypoint: DB load -> Gram engine -> JSON encode ->
 file write, timed as one CLI invocation — the figure a user actually
 sees, unlike bench_dist10k.py's engine-phase numbers.
 
-Builds (once, cached) a clustered .bsk DB like bench_dist10k.py's
+Builds (once, cached under .scratch/) a clustered .bsk DB like bench_dist10k.py's
 (100-sketch clusters sharing ~20% of hashes: within-cluster mash ~0.077,
 cross-cluster ~1.0), runs
 
@@ -26,7 +26,8 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
 def build_db(path: str, n: int, k: int, n_clusters: int = 100,
@@ -71,7 +72,7 @@ def main() -> None:
     ap.add_argument("--max-dist", type=float, default=0.1)
     args = ap.parse_args()
 
-    cache = os.path.expanduser("~/.cache/finch_tpu")
+    cache = os.path.join(REPO, ".scratch")
     os.makedirs(cache, exist_ok=True)
     db = os.path.join(cache, f"bench_cli_db_{args.n}_{args.k}.bsk")
     if not os.path.exists(db):

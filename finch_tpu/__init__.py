@@ -1,11 +1,12 @@
-"""finch_tpu — a TPU-native MinHash sketching framework.
+"""finch_tpu — a MinHash sketching framework on accelerators, in JAX.
 
-A from-scratch re-design of the capabilities of onecodex/finch-rs
-(/root/reference) for TPU hardware: FASTA/FASTQ records are parsed and
+A from-scratch re-design of the capabilities of onecodex/finch-rs for an
+accelerator (one NVIDIA H100, or four): FASTA/FASTQ records are parsed and
 2-bit-packed by a C++ host layer, k-mers are hashed with a vectorized
-MurmurHash3_x64_128 kernel on the device, bottom-k sketch selection is a
+MurmurHash3_x64_128 on the device, bottom-k sketch selection is a
 batched sort/dedup/top-k over hash lanes, and distance computation runs as
-tiled set intersections — scaled across device meshes with jax.sharding.
+Gram matrices and tiled set intersections — scaled across device meshes
+with jax.sharding.
 
 Numeric contract: hash-for-hash identical sketches and JSON-equal distances
 vs the reference CLI (`finch sketch` / `finch dist`, seed=0).

@@ -78,15 +78,15 @@ def _add_sketch_options(p):
     p.add_argument("--backend", dest="backend", default="auto",
                    choices=["auto", "numpy", "native", "jax", "mesh"],
                    help="Compute backend (finch_tpu extension; auto picks "
-                        "host for small inputs, single-TPU for large, "
-                        "mesh when several chips are visible)")
+                        "host for small inputs, one accelerator for large, "
+                        "mesh when several are visible)")
 
 
 def build_cli() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="finch",
         description="Tool for working with genomic MinHash sketches "
-                    "(TPU-native finch)")
+                    "(accelerator finch, in JAX)")
     # clap's crate_version! surface (/root/reference/cli/src/cli.rs:9)
     from finch_tpu import __version__
 

@@ -2,7 +2,7 @@
 (/root/reference/lib/src/lib.rs:29-94 `sketch_files` / `sketch_stream`).
 
 A sketch job streams batches of packed canonical k-mers from the C++ parser
-into a sketching engine (TPU or host backend), then applies filtering and
+into a sketching engine (device or host backend), then applies filtering and
 the scheme's post-filter rule on the (small) candidate set.
 """
 
@@ -112,7 +112,7 @@ def sketch_stream(source, name: str, sketch_params: SketchParams,
 
     # one-batch prefetch pipeline: the C++ parser releases the GIL, so the
     # next batch parses while the engine folds the current one (the device
-    # dispatch is async as well) — host parse and TPU compute overlap
+    # dispatch is async as well) — host parse and device compute overlap
     def timed_next(it):
         # timed inside the worker so the meter sees parse time only, not
         # the consumer's engine time

@@ -2,7 +2,7 @@
 
 Two interchangeable, bit-identical backends:
 
-* JaxEngine  — the TPU path: vectorized murmur + sort/dedup/top-k on device
+* JaxEngine  — the device path: vectorized murmur + sort/dedup/top-k
                (ops/murmur3.py, ops/bottomk.py).
 * NumpyEngine — host path for small inputs and as an independent oracle
                (hashes via the C++ murmur, reductions in NumPy).
@@ -254,7 +254,7 @@ class NativeEngine:
 
 
 class JaxEngine:
-    """TPU batch sketcher: fixed-capacity device state, jitted steps."""
+    """Device batch sketcher: fixed-capacity device state, jitted steps."""
 
     def __init__(self, params: SketchParams, batch_size: int = 1 << 21):
         import jax.numpy as jnp
@@ -292,10 +292,9 @@ class JaxEngine:
             self.state = bottomk.empty_state(self.capacity)
         self._mh = (jnp.uint64(self.max_hash) if self.max_hash is not None
                     else jnp.uint64(0))
-        self._use_kernel = (not self.wide) and bottomk.auto_use_kernel()
-        # composite reader batches skip the device-side prep pass on the
-        # kernel path and drop the per-k-mer rc byte from the transfer
-        self.wants_composite = self._use_kernel
+        # the reader ships u64 packed + u8 rc; the composite u32-plane
+        # form (8 B instead of 9 B per k-mer) is an open A/B
+        self.wants_composite = False
 
     @staticmethod
     def _bucket(n: int) -> int:
@@ -373,8 +372,7 @@ class JaxEngine:
             new_state, below = bk.sketch_step(
                 self.state, pk_d, rc_d, nvalid, self._mh,
                 k=self.params.k, seed=self.params.hash_seed,
-                has_max_hash=is_scaled, use_kernel=self._use_kernel,
-                composite=composite)
+                has_max_hash=is_scaled, composite=composite)
             if not is_scaled:
                 self.state = new_state
                 return
@@ -423,15 +421,13 @@ class HybridEngine:
 
     def __init__(self, params: SketchParams, batch_size: int = 1 << 21,
                  switch_after: int = 4 << 20):
-        from finch_tpu.ops import bottomk
-
         self.params = params
         self.batch_size = batch_size
         self.switch_after = switch_after
         self._host = NativeEngine(params)
         self._dev: Optional[JaxEngine] = None
         self._seen = 0
-        self.wants_composite = params.k <= 31 and bottomk.auto_use_kernel()
+        self.wants_composite = False
 
     def _migrate(self) -> None:
         import jax.numpy as jnp
@@ -445,13 +441,13 @@ class HybridEngine:
 
             dev.capacity *= 2
             dev.state = bottomk.empty_state(dev.capacity)
-        sh, sc, se, spk, spill, fill, hint = dev.state
+        sh, sc, se, spk, spill, fill = dev.state
         dev.state = (
             sh.at[:n].set(jnp.asarray(hh)),
             sc.at[:n].set(jnp.asarray(hc)),
             se.at[:n].set(jnp.asarray(he)),
             spk.at[:n].set(jnp.asarray(hpk)),
-            spill, fill, hint,
+            spill, fill,
         )
         self._dev = dev
         self._host = None
@@ -486,12 +482,12 @@ class HybridEngine:
 
 
 def _accelerator_present() -> bool:
-    try:
-        import jax
+    """True unless JAX's default backend is the CPU. A backend that fails
+    to initialise raises: a broken GPU runtime must not quietly send
+    `auto` to the host fold."""
+    import jax
 
-        return jax.default_backend() not in ("cpu",)
-    except Exception:
-        return False
+    return jax.default_backend() != "cpu"
 
 
 def _mesh_engine(params: SketchParams, batch_size: int):

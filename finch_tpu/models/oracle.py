@@ -1,7 +1,7 @@
 """Pure-Python streaming reference oracle.
 
 A deliberately slow, line-for-line faithful transcription of the reference
-algorithms, used ONLY in tests to property-check the batched TPU pipeline:
+algorithms, used ONLY in tests to property-check the batched device pipeline:
 
 * bottom-k ("mash") streaming sketcher  — /root/reference/lib/src/sketch_schemes/mash.rs:34-63
 * scaled sketcher                       — /root/reference/lib/src/sketch_schemes/scaled.rs:37-61

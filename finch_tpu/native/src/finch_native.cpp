@@ -1,6 +1,6 @@
 // finch_tpu native host layer.
 //
-// TPU-native re-design of the host-side duties that the reference implements
+// Re-design of the host-side duties that the reference implements
 // in Rust (finch-rs): FASTA/FASTQ(.gz) parsing + base normalization +
 // canonical k-mer enumeration (behavioral contract of needletail 0.5.0 as
 // used by /root/reference/lib/src/sketch_schemes/mash.rs:67-80), plus a
@@ -9,7 +9,7 @@
 //
 // Design: this layer turns ragged genomic records into dense, fixed-width
 // arrays of 2-bit-packed canonical k-mer codes — the ideal input layout for
-// the TPU hash + bottom-k pipeline. All per-byte branchy work happens here;
+// the device hash + bottom-k pipeline. All per-byte branchy work happens here;
 // all wide data-parallel work (hashing, sorting, top-k, set intersection)
 // happens on the device.
 //
@@ -124,7 +124,7 @@ extern "C" void fn_unpack_kmers(const uint64_t* packed, uint64_t n, uint32_t k,
 }
 
 // Hash packed k-mers directly (decode + murmur). CPU reference / fallback
-// path; the production path does this on the TPU.
+// path; the production path does this on the device.
 extern "C" void fn_murmur3_packed(const uint64_t* packed, uint64_t n,
                                   uint32_t k, uint64_t seed, uint64_t* out) {
   uint8_t buf[64];
@@ -681,8 +681,7 @@ static inline uint64_t win_be(const uint8_t* buf, uint64_t start,
 //                 needletail bit_kmers semantics, counts.rs:30).
 // EMIT=0: (packed u64, is_rc u8) pairs — the classic layout.
 // EMIT=1: composite u32 planes — lo/hi halves of ((packed << 1) | is_rc),
-//         exactly the operand layout of the fused device kernel
-//         (ops/pallas_extract.py), so no device-side prep pass is needed.
+//         8 bytes per k-mer instead of 9 (ops/bottomk.py composite=True).
 // EMIT=2: wide layout for 32 <= k <= 63 — (packed_lo u64, packed_hi u64,
 //         is_rc u8) triples; rolling state is a 2k-bit __int128 window.
 template <int EMIT>
@@ -1239,7 +1238,7 @@ extern "C" int fn_error(void* h) { return ((Parser*)h)->err; }
 // The reference's only parallelism is rayon::par_iter over FILES
 // (/root/reference/lib/src/lib.rs:34-47); everything inside a file is a
 // serial streaming loop. Here one file streams through a native pipeline so
-// a single multi-GB FASTQ can saturate both the host cores and the TPU:
+// a single multi-GB FASTQ can saturate both the host cores and the device:
 //
 //   [reader]  -> fixed blocks (plain read / serial zlib inflate / BGZF
 //                block groups handed to an inflate pool, reassembled

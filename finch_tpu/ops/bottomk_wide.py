@@ -18,7 +18,7 @@ the long-kmer range with a simpler, payload-carrying design:
     the `capacity` smallest distinct hashes of a batch can ever reach the
     final sketch, and truncation is permanent.
 
-No spill buffer, no Pallas kernel: wide k is a capability path (long-kmer
+No spill buffer: wide k is a capability path (long-kmer
 metagenomics), not the throughput headline; per-batch cost is two sorts.
 Same batch-equivalence contracts as ops/bottomk.py; property-tested against
 models/oracle.py in tests/test_wide_k.py.
@@ -50,8 +50,7 @@ def empty_state(capacity: int):
 
 
 def _scan(x, combine):
-    """Log-shift inclusive scan (u64 cumsum/cummax lower unsafely on TPU
-    at some shapes — see ops/bottomk.py:_dedup_truncate)."""
+    """Log-shift inclusive scan (see ops/bottomk.py:_scan)."""
     n = x.shape[0]
     d = 1
     while d < n:

@@ -7,11 +7,12 @@ bytes are reconstructed on-device from the packed 2-bit code (A=0 C=1 G=2
 T=3, base 0 in the most-significant bits) and the hash is evaluated in
 explicit (lo, hi) u32 lane pairs.
 
-Why pairs and not u64 lanes: measured on TPU v5e, XLA's emulated u64
-multiply-xor-shift triplet costs ~24x a u32 one, making a u64-lane murmur
-~3300 u32-op-equivalents per k-mer. The hand-decomposed pair form below is
-~400 u32 ops per k-mer (6 muls per 64x64 multiply via 16-bit mulhi
-decomposition), which XLA fuses into a single elementwise pass.
+Why pairs and not u64 lanes: the pair form was chosen on an earlier
+accelerator that emulated u64 arithmetic. It is ~400 u32 ops per k-mer
+(6 muls per 64x64 multiply via 16-bit mulhi decomposition), which XLA
+fuses into a single elementwise pass. The GPU has native 64-bit integer
+multiplies; whether a plain u64 form (as in models/oracle.py) is faster
+there is an open H100 A/B.
 
 The byte->word assembly is specialized per static k (k <= 31: at most 2
 16-byte blocks + tail).
@@ -184,29 +185,6 @@ def murmur3_x64_u32_words(words, length: int, seed: int):
     h1 = _add64(h1, h2)
     # h2 += h1 omitted; finch keeps only h1
     return h1
-
-
-def packed_pair_to_u32_words(plo, phi, k: int):
-    """packed_to_u32_words for packed codes given as (lo, hi) u32 lanes.
-
-    Pure u32 arithmetic — usable inside Pallas kernels (no 64-bit types).
-    Every code's shift 2*(k-1-j) is even, so each code lives wholly in one
-    u32 half (k <= 31).
-    """
-    nwords = 2 * ((k + 7) // 8)
-    words = []
-    for w in range(nwords):
-        acc = jnp.zeros_like(plo)
-        for j in range(w * 4, min(k, w * 4 + 4)):
-            shift = 2 * (k - 1 - j)
-            if shift >= 32:
-                code = (phi >> U32(shift - 32)) & U32(3)
-            else:
-                code = (plo >> U32(shift)) & U32(3)
-            byte = (_BASE_LUT >> (code << U32(3))) & U32(0xFF)
-            acc = acc | (byte << U32(8 * (j - w * 4)))
-        words.append(acc)
-    return words
 
 
 def packed2_to_u32_words(plo, phi, k: int):

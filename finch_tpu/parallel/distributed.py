@@ -1,17 +1,17 @@
 """Multi-host initialization and global meshes.
 
 The reference is a single-process CLI (its only concurrency is a rayon
-thread pool over files, /root/reference/lib/src/lib.rs:34-47). The TPU
-framework scales across hosts with jax.distributed: every host runs the
-same program, JAX wires the ICI/DCN collectives, and the sharded sketch /
-distance programs (finch_tpu.parallel) run unchanged over the global mesh.
+thread pool over files, lib/src/lib.rs:34-47). This framework can span
+processes with jax.distributed: every process runs the same program, JAX
+wires the collectives, and the sharded sketch / distance programs
+(finch_tpu.parallel) run unchanged over the global mesh.
 
-Typical pod usage (same command on every host):
+Usage (same command in every process):
 
     import finch_tpu.parallel.distributed as dist
-    dist.initialize()            # env-driven (TPU pods auto-configure)
-    mesh = dist.global_mesh()    # 1-D "data" mesh over all chips
-    eng = ShardedSketchEngine(params, mesh)
+    dist.initialize("host0:1234", num_processes=2, process_id=rank)
+    mesh = dist.global_mesh()    # 1-D "data" mesh over all devices
+    eng = ShardedSketchEngine(params, mesh, process_local=True)
 """
 
 from __future__ import annotations
@@ -26,10 +26,9 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Initialize jax.distributed for multi-host execution.
 
-    On TPU pods all arguments are discovered from the environment; on other
-    platforms pass coordinator_address ("host:port"), num_processes, and
-    this host's process_id. Safe to call once per process, before any other
-    JAX call.
+    Pass coordinator_address ("host:port"), num_processes and this
+    process's process_id; nothing discovers them from the environment on a
+    GPU cluster. Call once per process, before any other JAX call.
     """
     import jax
 

@@ -6,7 +6,8 @@ Here each (query, ref) pair's integer statistics (common, i, j) are
 computed on-device and the f64 distance formula is applied on host for
 exact JSON parity.
 
-TPU mapping: per-pair gathers/searchsorted are pathological, so pairs are
+Layout (inherited from an accelerator where per-pair gathers and
+searchsorted were slow; not yet re-measured on the H100): pairs are
 laid out as LANES of a (2K, pairs) tile whose columns are
 concat(query_hashes, reversed(ref_hashes)) — an ascending-then-descending
 (bitonic) sequence, since each side is already sorted. An 11-stage bitonic

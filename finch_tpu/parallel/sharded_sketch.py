@@ -5,8 +5,8 @@ shard into a local bottom-k state (ops/bottomk.py); states merge exactly at
 finalization via all-gather + dedup (counts add on equal hashes — the
 batch-equivalence theorem makes this bit-identical to a single stream).
 
-This is the TPU replacement for the reference's single-threaded per-file
-loop (/root/reference/lib/src/lib.rs:51-94), scaled over ICI with XLA
+This is the device replacement for the reference's single-threaded
+per-file loop (lib/src/lib.rs:51-94), scaled over the mesh with XLA
 collectives under shard_map.
 """
 
@@ -26,10 +26,9 @@ from finch_tpu.ops.bottomk import U64_MAX
 
 
 @partial(jax.jit, static_argnames=("k", "seed", "has_max_hash", "mesh",
-                                   "axis", "use_kernel", "composite"))
+                                   "axis", "composite"))
 def _sharded_step(state, batch_packed, batch_rc, nvalid, max_hash,
-                  *, k, seed, has_max_hash, mesh, axis, use_kernel=False,
-                  composite=False):
+                  *, k, seed, has_max_hash, mesh, axis, composite=False):
     """state: (n, C) arrays sharded on axis 0; batch: (n, B) sharded on
     axis 0; nvalid: (n,) per-shard valid counts."""
 
@@ -38,18 +37,16 @@ def _sharded_step(state, batch_packed, batch_rc, nvalid, max_hash,
         new_state, below = bottomk.sketch_step(
             st, pk[0], rc[0], nv[0], mh,
             k=k, seed=seed, has_max_hash=has_max_hash,
-            use_kernel=use_kernel, composite=composite)
+            composite=composite)
         below = jax.lax.psum(below, axis)
         return (jax.tree.map(lambda x: x[None], new_state), below[None])
 
     spec = P(axis)
-    st_spec = (spec,) * 7
-    # check_vma=False: the Pallas kernel inside produces outputs without
-    # varying-mesh-axes annotations, which the checker rejects on TPU
+    st_spec = (spec,) * 6
     return shard_map(
         body, mesh=mesh,
         in_specs=(st_spec, spec, spec, spec, P()),
-        out_specs=(st_spec, spec), check_vma=False,
+        out_specs=(st_spec, spec),
     )(state, batch_packed, batch_rc, nvalid, max_hash)
 
 
@@ -66,11 +63,11 @@ def _sharded_finalize(state, *, mesh, axis, k, seed):
         return jax.tree.map(lambda x: x[None], merged)
 
     spec = P(axis)
-    st_spec = (spec,) * 7
+    st_spec = (spec,) * 6
     return shard_map(
         body, mesh=mesh,
         in_specs=(st_spec,),
-        out_specs=st_spec, check_vma=False,
+        out_specs=st_spec,
     )(state)
 
 
@@ -100,7 +97,7 @@ class ShardedSketchEngine:
         update() with ITS OWN portion of the stream (equal batch shapes
         across processes; pad the final batch), state rows live on the
         process's addressable devices, and the finalize all-gather merges
-        globally over ICI/DCN. Exactness is order-independent (the
+        globally. Exactness is order-independent (the
         monotone-max theorem), so any split of the stream is exact.
         See parallel/distributed.py for initialization."""
         self.params = params
@@ -125,8 +122,7 @@ class ShardedSketchEngine:
         self.state = self._empty_state(self.capacity)
         self._mh = (jnp.uint64(self.max_hash) if self.max_hash is not None
                     else jnp.uint64(0))
-        self._use_kernel = bottomk.auto_use_kernel()
-        self.wants_composite = self._use_kernel
+        self.wants_composite = False
 
     def _put(self, local_rows: np.ndarray):
         """Place (n_local, ...) process-local rows as the process's part
@@ -147,8 +143,7 @@ class ShardedSketchEngine:
                 mk((n, capacity), 0, np.uint64),
                 mk((n, capacity), 0, np.uint64),
                 mk((n, sp), u64max, np.uint64),
-                mk((n, 1), 0, np.int32),
-                mk((n, 1), 0, np.int32))  # adaptive-absorb hint
+                mk((n, 1), 0, np.int32))
 
     def update(self, packed: np.ndarray, rc: np.ndarray) -> None:
         total = len(packed)
@@ -197,7 +192,7 @@ class ShardedSketchEngine:
                 self.state, pk_d, rc_d, nv_d, self._mh,
                 k=self.params.k, seed=self.params.hash_seed,
                 has_max_hash=is_scaled, mesh=self.mesh, axis=self.axis,
-                use_kernel=self._use_kernel, composite=composite)
+                composite=composite)
             if not is_scaled:
                 self.state = new_state
                 return
@@ -214,7 +209,7 @@ class ShardedSketchEngine:
                 _grow_cols(o, t, self.capacity)
                 for o, t in zip(old[:4], tmpl[:4])]
             new_sp = _copy_spill(old[4], tmpl[4])
-            self.state = (*grown, new_sp, old[5], old[6])
+            self.state = (*grown, new_sp, old[5])
             self.capacity = new_cap
 
     def _merged_arrays(self):

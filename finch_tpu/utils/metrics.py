@@ -1,8 +1,9 @@
 """Observability: throughput meters and profiler hooks.
 
 The reference has no tracing/metrics subsystem (README.md:112-121 documents
-external profiling only); for a production TPU deployment we need k-mers/s
-per stage and device-trace capture as first-class features (SURVEY §5).
+external profiling only); here k-mers/s per stage and device-trace capture
+are first-class features (SURVEY §5). The meters read the host's wall
+clock only; device times come from the trace.
 
 Meters are process-local and cheap (two floats + a counter per stage);
 they are best-effort under concurrency — parallel streams sharing a stage

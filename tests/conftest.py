@@ -19,9 +19,10 @@ jax.config.update("jax_enable_x64", True)
 import pytest  # noqa: E402
 
 
-REFERENCE_DATA = "/root/reference/cli/tests/data/query.fa"
+QUERY_FA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "query.fa")
 
 
 @pytest.fixture(scope="session")
 def query_fa_path():
-    return REFERENCE_DATA
+    return QUERY_FA

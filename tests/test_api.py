@@ -331,12 +331,12 @@ def _streaming_compare_counts(reference, query):
             skew, kurt)
 
 
-def test_python_shim_sketch_file_arbitrary_k():
+def test_python_shim_sketch_file_arbitrary_k(query_fa_path):
     """python.rs sketch_file has no k bound (u8 via the CLI only); the
     compat shim must sketch at k >= 64 through the xwide path."""
     import finch
 
-    s = finch.sketch_file("/root/reference/cli/tests/data/query.fa",
+    s = finch.sketch_file(query_fa_path,
                           n_hashes=10, kmer_length=101, filter=False)
     assert len(s.hashes) == 10
     assert len(s.hashes[0][1]) == 101  # (hash, kmer, count, extra) tuples

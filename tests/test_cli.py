@@ -9,7 +9,7 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-QUERY_FA = "/root/reference/cli/tests/data/query.fa"
+QUERY_FA = os.path.join(REPO, "tests", "data", "query.fa")
 
 GOLDEN_KMERS = [
     "ATGCTAGCTACGTAACGTCGC", "CAGTCGATCGATCGTAGCTGA",
@@ -387,9 +387,8 @@ def test_std_out_conflicts_with_output_file(tmp_path):
 
     proc = subprocess.run(
         [sys.executable, "-m", "finch_tpu.cli", "sketch", "-N", "-O",
-         "-o", str(tmp_path / "x"), "/root/reference/cli/tests/data/query.fa"],
+         "-o", str(tmp_path / "x"), QUERY_FA],
         capture_output=True, text=True,
-        env={**__import__("os").environ, "PYTHONPATH": "/root/repo"},
-        cwd="/root/repo")
+        env={**os.environ, "PYTHONPATH": REPO}, cwd=REPO)
     assert proc.returncode != 0
     assert "cannot be used with" in proc.stderr

@@ -201,7 +201,7 @@ if pid == 0:
 
 def test_sharded_engine_composite_input():
     """Composite u32-plane batches through the sharded engine equal the
-    classic path (XLA fallback on the CPU mesh; kernel on real TPU)."""
+    classic path."""
     import jax
     import numpy as np
 

@@ -1,6 +1,6 @@
 """Property-based tests (hypothesis) mirroring the reference's proptest
 strategy (lib/src/distance.rs:176-185, scaled.rs:202-213) plus the batch-
-equivalence theorem that underpins the TPU engines."""
+equivalence theorem that underpins the device engines."""
 
 import numpy as np
 from hypothesis import given, settings, strategies as st

@@ -6,6 +6,8 @@ reconstructs valid-base runs from the run-mode parser
 windows on the host; every backend must match the streaming oracle
 bit for bit."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -13,7 +15,8 @@ from finch_tpu.core.sketching import sketch_bytes, sketch_files
 from finch_tpu.models import oracle
 from finch_tpu.models.params import FilterParams, SketchParams
 
-QUERY_FA = "/root/reference/cli/tests/data/query.fa"
+QUERY_FA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "query.fa")
 
 
 def _oracle_records(data: bytes):
